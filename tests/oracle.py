@@ -76,6 +76,52 @@ def em_sweep(
     return theta_new, p_new, float(loglik)
 
 
+def em_sufficient_stats(
+    theta: np.ndarray,
+    p: np.ndarray,
+    tuples: np.ndarray,
+    ratings: np.ndarray,
+    weights: np.ndarray = None,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Unnormalized sweep statistics (theta_hat, p_hat, loglik), float64,
+    for arity 3 (p [K,K,K,R]) or arity 2 (p [K,K,R]).
+
+    theta_hat[g] sums w * (responsibility marginal at g's position);
+    p_hat sums w * omega into the observed rating's cell; loglik sums
+    w * log D.  Weight-0 rows (padding) contribute nothing.
+    """
+    theta = np.asarray(theta, np.float64)
+    p = np.asarray(p, np.float64)
+    if weights is None:
+        weights = np.ones(len(tuples))
+    arity = tuples.shape[1]
+    ntheta = np.zeros_like(theta)
+    npr = np.zeros_like(p)
+    loglik = 0.0
+    for row, r, w in zip(tuples, ratings, weights):
+        if w == 0:
+            continue
+        if arity == 3:
+            i, j, e = row
+            prod = (
+                theta[i][:, None, None]
+                * theta[j][None, :, None]
+                * theta[e][None, None, :]
+                * p[:, :, :, r]
+            )
+            margins = ((1, 2), (0, 2), (0, 1))
+        else:
+            prod = theta[row[0]][:, None] * theta[row[1]][None, :] * p[:, :, r]
+            margins = ((1,), (0,))
+        D = prod.sum()
+        loglik += w * np.log(D)
+        omega = w * prod / D
+        for g, axes in zip(row, margins):
+            ntheta[g] += omega.sum(axis=axes)
+        npr[..., r] += omega
+    return ntheta, npr, float(loglik)
+
+
 def log_likelihood(
     theta: np.ndarray, p: np.ndarray, triplets: np.ndarray, ratings: np.ndarray
 ) -> float:

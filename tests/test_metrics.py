@@ -106,8 +106,8 @@ def test_serve_predict_matches_ensemble():
     want = np.asarray(
         ensemble_predict_interaction(states, jnp.asarray(ds.triplets))
     )
-    # fast path (round 5: restart-batched scorer, DEFAULT precision — on
-    # CPU that is full f32, so only op-order noise separates them)
+    # fast path (restart-batched scorer, DEFAULT precision — on CPU that
+    # is full f32, so only op-order noise separates them)
     got = serve_predict_interaction(states, ds.triplets, block_rows=256)
     np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-6)
     # bit-stable path
@@ -122,8 +122,9 @@ def test_serve_predict_matches_ensemble():
 
 
 def test_pallas_scoring_kernel_matches_loop():
-    """The fused serving kernel (interpret mode) == the per-restart loop
-    scorer, including non-tile-multiple row counts (padding dropped)."""
+    """The fused serving kernel (Triton route, interpret mode) == the
+    per-restart loop scorer, including non-tile-multiple row counts
+    (padding dropped)."""
     import jax
     import jax.numpy as jnp
 
@@ -132,8 +133,8 @@ def test_pallas_scoring_kernel_matches_loop():
     )
     from trigenicinteractionpredictor_tpu.models.mmsbm import init_state
     from trigenicinteractionpredictor_tpu.ops.pallas_score import (
-        pallas_ensemble_predict_interaction,
-        score_kernel_fits,
+        score_kernel_applies,
+        triton_ensemble_predict_interaction,
     )
     from trigenicinteractionpredictor_tpu.ops.scoring import (
         ensemble_predict_interaction,
@@ -142,13 +143,11 @@ def test_pallas_scoring_kernel_matches_loop():
     ds, _, _ = sample_synthetic_dataset(777, 40, 4, seed=9)  # ragged B
     keys = jax.random.split(jax.random.key(1), 3)
     states = jax.vmap(lambda k: init_state(k, 40, 4, 2))(keys)
-    assert score_kernel_fits(40, 4, 3)
+    assert score_kernel_applies(3, 3, 4)
     trips = jnp.asarray(ds.triplets)
     want = np.asarray(ensemble_predict_interaction(states, trips))
     got = np.asarray(
-        pallas_ensemble_predict_interaction(
-            states, trips, tile_b=128, interpret=True
-        )
+        triton_ensemble_predict_interaction(states, trips, interpret=True)
     )
     np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-6)
 

@@ -1,8 +1,7 @@
 """CI coverage for the parity-readiness gate (docs/PARITY.md).
 
 Runs the full verify-parity flow on the checked-in example dataset so the
-gate is known-working before the real reference/Data S1 ever appears
-(VERDICT round 1 item 2)."""
+gate is known-working before the real reference/Data S1 ever appears."""
 
 import json
 import os

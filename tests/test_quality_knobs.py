@@ -1,11 +1,11 @@
-"""Round-2 quality knobs: DAEM annealing, spectral init, refinement.
+"""Quality knobs: DAEM annealing, spectral init, refinement.
 
 All default OFF (reference parity); these tests pin their mechanics:
 annealed sweeps with beta == 1 are exact EM, the ramp ends in a monotone
 exact-EM phase, refinement never loses likelihood (restart 0 keeps the
 unperturbed best state + EM monotonicity), and spectral init produces
-valid graded simplexes.  Quality effects are documented in BASELINE.md
-("EM quality study"), not asserted here — they are config-dependent.
+valid graded simplexes.  Quality effects are documented in docs/DESIGN.md
+§5b ("EM quality study"), not asserted here — they are config-dependent.
 """
 
 import numpy as np

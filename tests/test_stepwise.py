@@ -3,8 +3,8 @@
 The reference has only full-sweep EM; stepwise EM (PAPERS.md
 incremental-EM line) is the mode for datasets too large for full-batch
 sweeps (streaming / beyond-HBM).  At HBM-resident Kuzmin scale full-batch
-EM through the Pallas kernel is faster (measured: a 5-epoch stepwise warm
-start saves only ~10% of full-batch sweeps) — see BASELINE.md.  Tests:
+EM is the production mode (a 5-epoch stepwise warm start saved only ~10%
+of full-batch sweeps — docs/DESIGN.md §6).  Tests:
 the running-average update preserves the simplex invariants, the update
 counter and trace behave, and a stepwise fit recovers most of the
 full-batch fit's held-out AUC signal.
@@ -212,53 +212,38 @@ def test_classic_resume_equivalence(tmp_path):
     )
 
 
-def test_stepwise_bdr_matches_jnp():
-    """Stepwise + bdr kernel: the trainer rating-sorts every minibatch of
-    the epoch into a fixed padded layout, so the rating-sorted kernel is
-    numerically identical to the unsorted jnp path (order within a
-    minibatch is free — the EMA update consumes only the minibatch's
-    summed statistics; class padding is weight-0)."""
-    from trigenicinteractionpredictor_tpu.ops.dispatch import resolve_stats_fn
-
+@pytest.mark.parametrize("row_chunk", [100, 256])
+def test_stepwise_row_chunk_matches_whole(row_chunk):
+    """Stepwise EM through the row-chunked statistics (the trainer's
+    default path) == the whole-minibatch statistics: chunking only splits
+    sums that are linear in rows, including a ragged last chunk."""
     ds, _, _ = sample_synthetic_dataset(2048, 30, 3, seed=11)
-    mk = lambda: Config(  # noqa: E731
+    mk = lambda rc: Config(  # noqa: E731
         train=TrainConfig(
-            k=3, sweeps=6, samples=2, likelihood_freq=2, minibatch=512
+            k=3, sweeps=4, samples=2, likelihood_freq=2, minibatch=512
         ),
-        engine=EngineConfig(batch_pad_multiple=512),
+        engine=EngineConfig(batch_pad_multiple=512, jnp_row_chunk=rc),
     )
-    ref = fit(mk(), ds)
-
-    stats_fn = resolve_stats_fn(
-        "pallas", ds.n_genes, 3, n_samples=2,
-        static_rows=False, minibatch_rsort=True,
-    )
-    assert getattr(stats_fn, "needs_rsort", False), "expected the bdr kernel"
-    out = fit(mk(), ds, stats_fn=stats_fn)
-
+    ref = fit(mk(0), ds)
+    out = fit(mk(row_chunk), ds)
     np.testing.assert_allclose(
         np.asarray(out.states.theta), np.asarray(ref.states.theta),
-        atol=2e-3,
+        atol=1e-5,
     )
     np.testing.assert_allclose(
-        np.asarray(out.states.p), np.asarray(ref.states.p), atol=2e-3
+        np.asarray(out.states.p), np.asarray(ref.states.p), atol=1e-5
     )
     np.testing.assert_allclose(
-        np.asarray(out.ll_trace), np.asarray(ref.ll_trace), rtol=1e-4
+        np.asarray(out.ll_trace), np.asarray(ref.ll_trace), rtol=1e-5
     )
 
 
-def test_stepwise_bdr_streaming_groups_exact():
-    """stream_groups must not change the stepwise-bdr result: the EMA
-    sequence depends only on the carried counter and per-minibatch sums,
-    which the per-group rating sort preserves."""
-    from trigenicinteractionpredictor_tpu.ops.dispatch import resolve_stats_fn
-
-    ds, _, _ = sample_synthetic_dataset(2048, 30, 3, seed=12)
-    stats_fn = resolve_stats_fn(
-        "pallas", ds.n_genes, 3, n_samples=2,
-        static_rows=False, minibatch_rsort=True,
-    )
+@pytest.mark.parametrize("arity", [3, 2])
+def test_stepwise_streaming_groups_exact(arity):
+    """stream_groups must not change the stepwise result: the EMA sequence
+    depends only on the carried counter and per-minibatch sums — for the
+    trigenic and the digenic family alike."""
+    ds, _, _ = sample_synthetic_dataset(2048, 30, 3, seed=12, arity=arity)
     mk = lambda sg: Config(  # noqa: E731
         train=TrainConfig(
             k=3, sweeps=4, samples=2, likelihood_freq=2, minibatch=512,
@@ -266,8 +251,8 @@ def test_stepwise_bdr_streaming_groups_exact():
         ),
         engine=EngineConfig(batch_pad_multiple=512),
     )
-    mono = fit(mk(0), ds, stats_fn=stats_fn)
-    strm = fit(mk(2), ds, stats_fn=stats_fn)
+    mono = fit(mk(0), ds)
+    strm = fit(mk(2), ds)
     np.testing.assert_allclose(
         np.asarray(strm.states.theta), np.asarray(mono.states.theta),
         atol=1e-5,

@@ -1,8 +1,9 @@
-"""Tests for train/stream_prep.py (round-5 streaming host pipeline).
+"""Tests for train/stream_prep.py (the streaming host pipeline).
 
 The streaming trainer's host prep must be bit-equivalent between the
-in-thread and the spawn-pool paths, preserve the round-4 (seed, epoch)
-shuffle derivation (resume replay), and keep padding inert.
+in-thread and the spawn-pool paths, preserve the (seed, epoch) shuffle
+derivation (resume replay), keep padding inert, and leave the parent's
+environment and /dev/shm as it found them.
 """
 
 import numpy as np
@@ -16,8 +17,8 @@ from trigenicinteractionpredictor_tpu.train.stream_prep import (
 
 def test_epoch_perm_matches_round4_derivation():
     """Resume-replay contract: the shuffle is the same function of
-    (seed, epoch) the round-4 trainer used — checkpoints that replay
-    epochs get the identical minibatch sequence."""
+    (seed, epoch) older trainers used — checkpoints that replay epochs get
+    the identical minibatch sequence."""
     seed, ep, n = 3, 5, 1000
     ref = np.random.default_rng((seed ^ 0x5EED) + 7919 * (ep + 1)).permutation(n)
     got = epoch_perm(seed, ep, n)
@@ -34,31 +35,23 @@ def test_epoch_perm_varies_and_is_deterministic():
     assert np.array_equal(np.sort(a), np.arange(n))
 
 
-def _mk_layout(n, mb, group, rsort, tile=8, d_sh=1, R=2):
-    B = mb // d_sh
-    ft = B // tile + R if rsort else 0
+def _mk_layout(n, mb, group):
     return {
         "seed": 11,
         "n": n,
         "n_padded": -(-n // mb) * mb,
         "mb": mb,
-        "mb_b": ft * tile * d_sh if rsort else mb,
         "group": group,
         "arity": 3,
-        "rsort": rsort,
-        "n_ratings": R,
-        "tile": tile,
-        "n_shards": d_sh,
-        "n_tiles": ft,
     }
 
 
-@pytest.mark.parametrize("rsort", [False, True])
-def test_stream_prep_inthread(rsort):
+@pytest.mark.parametrize("group", [1, 2])
+def test_stream_prep_inthread(group):
     from trigenicinteractionpredictor_tpu.data.packing import TripletDataset
 
     rng = np.random.default_rng(0)
-    n, mb, group = 500, 64, 2
+    n, mb = 500, 64
     ds = TripletDataset(
         triplets=rng.integers(0, 20, size=(n, 3), dtype=np.int32),
         ratings=rng.integers(0, 2, size=n, dtype=np.int32),
@@ -66,11 +59,11 @@ def test_stream_prep_inthread(rsort):
         n_genes=20,
         n_ratings=2,
     )
-    sp = StreamPrep(ds, _mk_layout(n, mb, group, rsort), workers=1)
+    lay = _mk_layout(n, mb, group)
+    sp = StreamPrep(ds, lay, workers=1)
     try:
         out = sp.prep_group(0, 0)
-        lay = _mk_layout(n, mb, group, rsort)
-        assert np.asarray(out["trip"]).shape == (group, lay["mb_b"], 3)
+        assert np.asarray(out["trip"]).shape == (group, mb, 3)
         # padding rows are weight-0; real weights sum preserved across an
         # epoch's groups
         n_dispatch = lay["n_padded"] // (group * mb)
@@ -84,29 +77,24 @@ def test_stream_prep_inthread(rsort):
 
 
 def test_stream_prep_matches_legacy_trainer_prep():
-    """The in-thread StreamPrep output must equal what the round-4
-    trainer's inline prep produced for the same (seed, epoch, group):
-    same permutation, same gather, same per-minibatch rating sort."""
+    """The in-thread StreamPrep output must equal the inline prep older
+    trainers did for the same (seed, epoch, group): same permutation,
+    same gather, padding rows past n as weight-0 zeros."""
     from trigenicinteractionpredictor_tpu.data.packing import TripletDataset
-    from trigenicinteractionpredictor_tpu.ops.pallas_em_rsorted import (
-        apply_rating_sort,
-        rating_sort_pad,
-    )
 
     rng = np.random.default_rng(2)
-    n, mb, group, tile, d_sh, R = 700, 128, 2, 16, 2, 2
+    n, mb, group = 700, 128, 2
     ds = TripletDataset(
         triplets=rng.integers(0, 30, size=(n, 3), dtype=np.int32),
-        ratings=rng.integers(0, R, size=n, dtype=np.int32),
+        ratings=rng.integers(0, 2, size=n, dtype=np.int32),
         weights=rng.random(n).astype(np.float32),
         n_genes=30,
-        n_ratings=R,
+        n_ratings=2,
     )
-    lay = _mk_layout(n, mb, group, rsort=True, tile=tile, d_sh=d_sh)
+    lay = _mk_layout(n, mb, group)
     sp = StreamPrep(ds, lay, workers=1)
     try:
         out = sp.prep_group(3, 1)
-        # round-4 inline equivalent
         perm = np.random.default_rng((11 ^ 0x5EED) + 7919 * 4).permutation(
             lay["n_padded"]
         )
@@ -118,20 +106,91 @@ def test_stream_prep_matches_legacy_trainer_prep():
         trip[mask] = ds.triplets[gp[mask]]
         rat[mask] = ds.ratings[gp[mask]]
         wts[mask] = ds.weights[gp[mask]]
-        ft = lay["n_tiles"]
-        for m in range(group):
-            sl = slice(m * mb, (m + 1) * mb)
-            plan = rating_sort_pad(rat[sl], R, tile=tile, n_shards=d_sh,
-                                   n_tiles=ft)
-            t_, r_, w_ = apply_rating_sort(
-                plan, trip[sl], rat[sl], wts[sl], n_shards=d_sh
-            )
-            assert np.array_equal(np.asarray(out["trip"])[m], t_)
-            assert np.array_equal(np.asarray(out["rat"])[m], r_)
-            assert np.array_equal(np.asarray(out["wts"])[m], w_)
-            assert np.array_equal(np.asarray(out["tiler"])[m], plan.tile_r)
+        assert np.array_equal(np.asarray(out["trip"]), trip.reshape(group, mb, 3))
+        assert np.array_equal(np.asarray(out["rat"]), rat.reshape(group, mb))
+        assert np.array_equal(np.asarray(out["wts"]), wts.reshape(group, mb))
     finally:
         sp.close()
+
+
+@pytest.mark.parametrize("before", [None, "cpu,gpu"])
+def test_pool_start_restores_jax_platforms(monkeypatch, before):
+    """Pool workers start with JAX_PLATFORMS=cpu; afterwards the parent's
+    own setting is back exactly as it was (unset stays unset)."""
+    import trigenicinteractionpredictor_tpu.train.stream_prep as sp_mod
+
+    if before is None:
+        monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    else:
+        monkeypatch.setenv("JAX_PLATFORMS", before)
+    seen = {}
+
+    class FakePool:
+        def __init__(self, **kw):
+            import os
+
+            seen["during"] = os.environ.get("JAX_PLATFORMS")
+
+        def map(self, fn, it, chunksize=1):
+            return [fn(x) for x in it]
+
+        def shutdown(self, wait=True):
+            pass
+
+    import concurrent.futures
+
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", FakePool)
+    obj = sp_mod.StreamPrep.__new__(sp_mod.StreamPrep)
+    obj._workers = 2
+    obj._ds_arrays = (np.zeros((4, 3), np.int32),) * 3
+    obj._layout = {}
+    obj._start_pool()
+    import os
+
+    assert seen["during"] == "cpu"
+    assert os.environ.get("JAX_PLATFORMS") == before
+
+
+def test_close_unlinks_shm_even_when_close_raises():
+    """A slot whose close() raises (a view still exported) must still have
+    its /dev/shm name unlinked."""
+    from multiprocessing import shared_memory
+
+    calls = []
+
+    class Shm:
+        def close(self):
+            calls.append("close")
+            raise BufferError("view still exported")
+
+        def unlink(self):
+            calls.append("unlink")
+
+    obj = StreamPrep.__new__(StreamPrep)
+    obj._pool = None
+    obj._slots = [{"trip": (Shm(), None), "rat": (Shm(), None)}]
+    obj.close()
+    assert calls == ["close", "unlink", "close", "unlink"]
+    assert obj._slots == []
+
+    # And a real segment is gone after close().
+    rng = np.random.default_rng(0)
+    from trigenicinteractionpredictor_tpu.data.packing import TripletDataset
+
+    n = 256
+    ds = TripletDataset(
+        triplets=rng.integers(0, 10, size=(n, 3), dtype=np.int32),
+        ratings=rng.integers(0, 2, size=n, dtype=np.int32),
+        weights=np.ones(n, np.float32),
+        n_genes=10,
+        n_ratings=2,
+    )
+    sp = StreamPrep(ds, _mk_layout(n, 64, 2), workers=1)
+    slot = sp._slot(0)
+    name = slot["trip"][0].name
+    sp.close()
+    with pytest.raises(FileNotFoundError):
+        shared_memory.SharedMemory(name=name)
 
 
 @pytest.mark.slow
@@ -152,7 +211,7 @@ def test_stream_prep_pool_matches_inthread(tmp_path):
     ds.save_dir(str(tmp_path / "ds"))
     ds_mm = TripletDataset.load_dir(str(tmp_path / "ds"), mmap=True)
 
-    lay = _mk_layout(n, mb, group, rsort=True, tile=16, d_sh=2)
+    lay = _mk_layout(n, mb, group)
     ref = StreamPrep(ds, lay, workers=1)
     pool = StreamPrep(ds_mm, lay, workers=2)
     try:

@@ -1,4 +1,4 @@
-"""Beyond-HBM streaming loader behind the stepwise path (VERDICT r1 item 9).
+"""Beyond-HBM streaming loader behind the stepwise path.
 
 The claim to back: a dataset larger than one chip's HBM can train through
 stepwise EM with only one minibatch GROUP resident on device at a time,
@@ -64,7 +64,7 @@ def test_streamed_fit_residency_is_group_bounded(tmp_path, monkeypatch):
     """End to end (epochs + final likelihood): peak residency is
     O(group*mb), not O(N) — pad_to() is never called (it concatenates a
     whole-dataset host copy), and no single device transfer exceeds the
-    group window (VERDICT r2 item 3a+3b)."""
+    group window."""
     import jax
 
     N, mbatch, groups = 8192, 256, 2

@@ -65,7 +65,7 @@ def test_tp_step_matches_replicated(model, data):
 
 def test_tp_through_trainer_matches_replicated_large_k():
     """`fit` with mesh.model=2 (TP x EP x DP mesh) == replicated fit at
-    large K — the regime TP exists for (VERDICT round 1 item 5)."""
+    large K — the regime TP exists for."""
     from trigenicinteractionpredictor_tpu.config import (
         Config,
         EngineConfig,
@@ -80,12 +80,12 @@ def test_tp_through_trainer_matches_replicated_large_k():
     cfg_tp = Config(
         train=tcfg,
         mesh=MeshConfig(data=2, ensemble=2, model=2),
-        engine=EngineConfig(backend="jnp"),
+        engine=EngineConfig(),
     )
     cfg_rep = Config(
         train=tcfg,
         mesh=MeshConfig(data=4, ensemble=2),
-        engine=EngineConfig(backend="jnp"),
+        engine=EngineConfig(),
     )
     r_tp = fit(cfg_tp, ds)
     r_rep = fit(cfg_rep, ds)
@@ -119,12 +119,12 @@ def test_tp_anneal_matches_replicated_anneal():
     )
     r_tp = fit(
         Config(train=tcfg, mesh=MeshConfig(data=2, model=2),
-               engine=EngineConfig(backend="jnp")),
+               engine=EngineConfig()),
         ds,
     )
     r_rep = fit(
         Config(train=tcfg, mesh=MeshConfig(data=4),
-               engine=EngineConfig(backend="jnp")),
+               engine=EngineConfig()),
         ds,
     )
     np.testing.assert_allclose(

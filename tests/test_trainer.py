@@ -180,7 +180,7 @@ def test_evaluate_multiclass_labels():
 def test_merge_report_handles_legacy_units_and_selected_mean(tmp_path):
     """Mixed-version unit dirs (records without heldout_loglik) must merge,
     and the summary reports the selected-model mean separately from the
-    all-units mean (round-1 advisor + verdict findings)."""
+    all-units mean."""
     units = os.path.join(tmp_path, "units")
     os.makedirs(units)
     recs = [

@@ -1,20 +1,20 @@
-"""EM-quality study on peaky ground truth (VERDICT round 1, item 1).
+"""EM-quality study on peaky ground truth.
 
-The round-1 hardness study (BASELINE.md) found that on a peaky synthetic
+An earlier hardness study (docs/DESIGN.md §5b) found that on a peaky synthetic
 config (generator Dirichlet alpha_theta = 0.05) every plain-EM chain — 50
 restarts x 3000 sweeps, three init concentrations — converges ~10k nats
 above the ground-truth likelihood with held-out AUC ~0.55 against a Bayes
 rate of 0.81.  Oracle parity means the reference's EM does the same; the
-brief is match-or-beat, so this script measures the quality knobs added in
-round 2 (deterministic annealing, spectral init, perturb-and-resweep)
+brief is match-or-beat, so this script measures the quality knobs
+(deterministic annealing, spectral init, perturb-and-resweep)
 against plain EM at comparable compute.
 
 Usage:
-    python tools/quality_study.py                 # full scale (TPU)
+    python tools/quality_study.py                 # full scale (GPU)
     python tools/quality_study.py --small --cpu   # fast CPU probe
 
-Prints one JSON line per arm and a summary table; paste the table into
-BASELINE.md.
+Prints one JSON line per arm and a summary table; docs/DESIGN.md §5b
+keeps the findings.
 """
 
 from __future__ import annotations

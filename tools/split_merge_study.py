@@ -1,20 +1,20 @@
-"""Split-merge EM study on the peaky config (VERDICT round 1, item 1).
+"""Split-merge EM study on the peaky config.
 
-The round-2 quality study (BASELINE.md "EM quality study") exhausted the
+The EM quality study (docs/DESIGN.md §5b) exhausted the
 standard cold-start arsenal — annealing, sharpening, spectral/moment init,
 perturb-resweep, progressive splitting, CEM/Gibbs, consensus — and every
 arm landed ~1000 nats above the deep basin at held-out AUC ~0.51.  This
-harness measures the one VERDICT-listed mitigation that table lacked:
+harness measures the one listed mitigation that table lacked:
 split-merge EM (Ueda et al. 2000; proposal move now shipped as
 ``TrainConfig.smem_rounds`` via models/proposals.py).  Unlike annealing
 (which smooths the landscape) or restarts (which resample the same shallow
 basins), split-merge makes *structured* jumps between basins of different
 group topology — the known fix for EM's tendency to starve one component
-while doubling another.  Measured outcome (recorded in BASELINE.md): best
+while doubling another.  Measured outcome (docs/DESIGN.md §5b): best
 train likelihood of any cold-start method tested, no held-out AUC gain on
 the peaky config.
 
-The candidate resweeps ride the lane-stacked restart ensemble
+The candidate resweeps ride the restart ensemble
 (``fit(init_states=...)``), so one SMEM round costs one ordinary fit call.
 
 Usage:

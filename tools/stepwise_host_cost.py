@@ -1,16 +1,13 @@
 """Measure the stepwise (beyond-HBM) path's per-epoch HOST cost at scale.
 
-VERDICT r3 weak #5 / r4 item 3: the streaming stepwise trainer preps
-every minibatch on the host each epoch.  Round 4 measured the legacy
-pipeline (serial rng.permutation + fancy-index gather + per-minibatch
-Python rating-sort loop) at ~9.6x the bdr kernel's device time per epoch
-(2.45 s vs 0.26 s at 10^7 memmapped rows).  Round 5 replaced it with
-train/stream_prep.py: sliced Feistel permutation, one vectorized
-rating-sort per dispatch group, and an optional spawn-process pool.
-
-This tool times all three pipelines on a synthetic memmapped dataset (no
-device needed) and compares against the measured device sweep rate,
-printing one JSON line per pipeline.
+The streaming stepwise trainer preps every minibatch on the host each
+epoch: the (seed, epoch) permutation and the row gather
+(train/stream_prep.py), in-thread or through a spawn-process pool.  This
+tool times both pipelines on a synthetic memmapped dataset and prints one
+JSON line per pipeline.  The in-thread pipeline needs no device; the pool
+pipeline ends in ``device_put`` to the default device.  Compare the host
+seconds with the device's epoch time from a trace of the same shape
+(not measured here).
 
 Usage: python tools/stepwise_host_cost.py [--n 10000000] [--mb 131072]
        [--workers N]
@@ -31,25 +28,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# Measured device rates (BASELINE.md): the bdr kernel sustains ~390-420M
-# restart-triplet updates/s at S=10, i.e. ~39-42M rows/s of minibatch
-# dispatch; the one-hot ensemble kernel (the non-rsort stepwise fallback)
-# ~16M rows/s.
-DEVICE_ROWS_PER_S_BDR = 39e6
-DEVICE_ROWS_PER_S_ONEHOT = 16e6
-
-
 def _report(tag, N, detail, host_total):
-    dev_bdr = N / DEVICE_ROWS_PER_S_BDR
-    dev_onehot = N / DEVICE_ROWS_PER_S_ONEHOT
     print(json.dumps({
         "pipeline": tag,
         **detail,
         "host_total_s": round(host_total, 2),
         "host_rows_per_s": round(N / host_total),
-        "device_epoch_s_bdr_est": round(dev_bdr, 2),
-        "host_over_device_bdr": round(host_total / dev_bdr, 2),
-        "host_over_device_onehot": round(host_total / dev_onehot, 2),
     }), flush=True)
 
 
@@ -59,18 +43,11 @@ def main() -> None:
     ap.add_argument("--genes", type=int, default=2000)
     ap.add_argument("--mb", type=int, default=131072)
     ap.add_argument("--group", type=int, default=8, help="stream_groups")
-    ap.add_argument("--tile", type=int, default=512)
-    ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--ratings", type=int, default=2)
     ap.add_argument("--workers", type=int, default=0,
                     help="pool size for the pooled pipeline (0 = cpu-1)")
-    ap.add_argument("--skip-legacy", action="store_true")
     args = ap.parse_args()
 
-    from trigenicinteractionpredictor_tpu.ops.pallas_em_rsorted import (
-        apply_rating_sort,
-        rating_sort_pad,
-    )
     from trigenicinteractionpredictor_tpu.train.stream_prep import (
         StreamPrep,
         _prep_minibatches,
@@ -112,56 +89,13 @@ def main() -> None:
         while n_mb % group:       # mirror trainer: largest divisor <= req
             group -= 1
         n_dispatch = n_mb // group
-        d_sh = args.shards
-        B_sh = mb // d_sh
-        ft = B_sh // args.tile + R
-        mb_b = ft * args.tile * d_sh
         layout = {
             "seed": 1, "n": N, "n_padded": n_padded, "mb": mb,
-            "mb_b": mb_b, "group": group, "arity": 3, "rsort": True,
-            "n_ratings": R, "tile": args.tile, "n_shards": d_sh,
-            "n_tiles": ft,
+            "group": group, "arity": 3,
         }
-        detail = {"n": N, "mb": mb, "group": group, "tile": args.tile,
-                  "padded_mb_rows": mb_b}
+        detail = {"n": N, "mb": mb, "group": group}
 
-        # --- legacy pipeline (round-4): serial perm + python sort loop --
-        if not args.skip_legacy:
-            t0 = time.perf_counter()
-            perm = np.random.default_rng(1).permutation(n_padded)
-            t_perm = time.perf_counter() - t0
-            t_gather = t_sort = 0.0
-            for d in range(n_dispatch):
-                gp = perm[d * group * mb : (d + 1) * group * mb]
-                t0 = time.perf_counter()
-                trip = np.zeros((len(gp), 3), np.int32)
-                rat = np.zeros(len(gp), np.int32)
-                wts = np.zeros(len(gp), np.float32)
-                mask = gp < N
-                trip[mask] = trip_mm[gp[mask]]
-                rat[mask] = rat_mm[gp[mask]]
-                wts[mask] = wts_mm[gp[mask]]
-                t_gather += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                for m in range(group):
-                    sl = slice(m * mb, (m + 1) * mb)
-                    plan = rating_sort_pad(
-                        rat[sl], R, tile=args.tile, n_shards=d_sh,
-                        n_tiles=ft,
-                    )
-                    apply_rating_sort(
-                        plan, trip[sl], rat[sl], wts[sl], n_shards=d_sh
-                    )
-                t_sort += time.perf_counter() - t0
-            _report(
-                "legacy", N,
-                {**detail, "t_perm_s": round(t_perm, 2),
-                 "t_gather_s": round(t_gather, 2),
-                 "t_rsort_s": round(t_sort, 2)},
-                t_perm + t_gather + t_sort,
-            )
-
-        # --- round-5 in-thread pipeline (int32 perm + same prep) --------
+        # --- in-thread pipeline (int32 perm + gather) --------------------
         ds_arrays = (trip_mm, rat_mm, wts_mm)
         t0 = time.perf_counter()
         perm5 = epoch_perm(1, 0, n_padded)
@@ -171,9 +105,9 @@ def main() -> None:
                 perm5[d * group * mb : (d + 1) * group * mb],
             )
         t_inthread = time.perf_counter() - t0
-        _report("r5-inthread", N, detail, t_inthread)
+        _report("inthread", N, detail, t_inthread)
 
-        # --- round-5 pooled pipeline ------------------------------------
+        # --- pooled pipeline ---------------------------------------------
         workers = args.workers or max(1, (os.cpu_count() or 2) - 1)
         if workers >= 2:
             ds_obj = types.SimpleNamespace(

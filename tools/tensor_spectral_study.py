@@ -1,6 +1,6 @@
-"""Seeding attack on the deep-basin unlock (VERDICT r4 item 8, stretch).
+"""Seeding attack on the deep-basin unlock.
 
-The round-2 landscape study (BASELINE.md "EM quality study") proved that
+The landscape study (docs/DESIGN.md §5b, "EM quality study") proved that
 on peaky ground truth (alpha_theta=0.05) the deep basin's attraction
 zone is wide — a seed with >= ~60% partition purity lets EM finish the
 job — and that nothing PAIRWISE can build such a seed (spectral inits

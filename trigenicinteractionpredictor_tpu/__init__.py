@@ -1,6 +1,6 @@
-"""TPU-native MMSBM engine for trigenic genetic-interaction prediction.
+"""MMSBM engine for trigenic genetic-interaction prediction, on the GPU.
 
-A from-scratch, TPU-first re-design of the capabilities of the reference
+A from-scratch, accelerator-first re-design of the capabilities of the reference
 ``AleixMT/TrigenicInteractionPredictor`` (a pure-Python, single-process EM
 fitter for the tensorial Mixed-Membership Stochastic Block Model of
 Godoy-Lorite et al., PNAS 2016, applied to the Kuzmin et al. 2018 trigenic
@@ -16,9 +16,10 @@ dataset).  See ``SURVEY.md`` for the layer map this package implements:
 - L6 CLI / config        -> :mod:`trigenicinteractionpredictor_tpu.cli`,
                             :mod:`trigenicinteractionpredictor_tpu.config`
 
-The compute path is JAX/XLA/Pallas; the hot EM sweep is expressed as
-factorized matmuls (never materializing the per-triplet K^3 responsibility
-tensor) so it maps onto the MXU, and scales across a device mesh with
+The compute path is JAX compiled by XLA, plus one Pallas (Triton) kernel
+for ensemble scoring; the hot EM sweep is expressed as factorized matmuls,
+gathers and a segment-sum (never materializing the per-triplet K^3
+responsibility tensor), and scales across a device mesh with
 ``shard_map`` + ``psum`` of sufficient statistics.
 """
 

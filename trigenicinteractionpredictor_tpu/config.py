@@ -3,7 +3,7 @@
 The reference drives everything through getopt-style CLI flags (data file,
 K, #iterations, #samples, likelihood-check frequency, output dir — SURVEY.md
 §2 L6 / §3.1 "CLI / arg parsing").  Here the same knobs — plus the ones the
-TPU re-design adds (mesh shape, kernel backend, padding, dtypes) — live in a
+accelerator design adds (mesh shape, padding, row chunking) — live in a
 single frozen dataclass that is serialized into every checkpoint and report
 for reproducibility (SURVEY.md §6 "Config / flag system").
 """
@@ -70,8 +70,8 @@ class TrainConfig:
     # Stepwise (incremental/minibatch) EM: update parameters after every
     # ``minibatch`` rows instead of once per full sweep (0 = classic EM).
     # The mode for data too large for full-batch sweeps (streaming /
-    # beyond-HBM); at HBM-resident scale classic EM through the Pallas
-    # kernel is faster (BASELINE.md).  Per-update monotonicity is not
+    # beyond-HBM); at HBM-resident scale classic EM is the production mode
+    # (docs/DESIGN.md §6).  Per-update monotonicity is not
     # guaranteed.  ``sweeps`` counts epochs in this mode.
     minibatch: int = 0
     # Robbins-Monro decay of the running-statistics weight:
@@ -86,7 +86,7 @@ class TrainConfig:
     # NOTE: with stream_prefetch on (the default), the NEXT group is
     # transferred while the current one is still resident, so size
     # stream_groups for TWO groups of HBM headroom — or set
-    # stream_prefetch=False for strict one-group residency (ADVICE r4).
+    # stream_prefetch=False for strict one-group residency.
     stream_groups: int = 0
     # One-group-lookahead prefetch: overlap the next group's host prep +
     # host->device transfer with device execution.  Costs up to 2x group
@@ -98,8 +98,8 @@ class TrainConfig:
     # spawn workers writing into shared memory.
     stream_prep_workers: int = 0
     # --- quality knobs beyond the reference's EM (all default OFF so the
-    # default configuration reproduces reference parity; VERDICT round 1
-    # item 1 / BASELINE.json:5 "match or beat") -------------------------
+    # default configuration reproduces reference parity; BASELINE.json:5
+    # "match or beat"; docs/DESIGN.md §5b) --------------------------------
     # Deterministic annealing (DAEM): start the EM at inverse temperature
     # beta0 < 1 (responsibilities smoothed toward uniform, merging nearby
     # local-optimum basins) and ramp geometrically to beta = 1 over
@@ -121,7 +121,7 @@ class TrainConfig:
     # Restart 0 keeps the unperturbed best, so likelihood never drops.
     # Runs before refine_rounds (topology jumps first, local polish after).
     # 0 = off.  Measured: best train likelihood of any cold-start method
-    # tested (BASELINE.md "EM quality study").
+    # tested (docs/DESIGN.md §5b).
     smem_rounds: int = 0
     smem_sweeps: int = 0             # extra sweeps per round; 0 = sweeps/4
     # Initialization: 'random' (reference-style Dirichlet) or 'spectral'
@@ -152,8 +152,7 @@ class MeshConfig:
     ensemble: int = 1                # number of shards along the restart axis
     # Tensor parallelism over p's l axis — the large-K regime (K >~ 50,
     # where K^3 objects dominate memory).  model > 1 switches the trainer
-    # to the TP step (parallel/tensor_parallel.py); the Pallas kernels are
-    # bypassed there (p is sharded) in favor of the jnp path.
+    # to the TP step (parallel/tensor_parallel.py).
     model: int = 1
 
     @property
@@ -161,36 +160,21 @@ class MeshConfig:
         return self.data * self.ensemble * self.model
 
 
+# EngineConfig fields that earlier versions had and checkpoints may still
+# carry; Config.from_dict drops them.
+_REMOVED_ENGINE_KEYS = ("backend", "tile_b", "precision", "bdr_group")
+
+
 @dataclass(frozen=True)
 class EngineConfig:
-    """Compute-path selection and padding."""
+    """Padding and row chunking of the EM engine (ops/em.py)."""
 
-    backend: str = "auto"            # 'jnp' | 'pallas' | 'auto'
-    # Pad the triplet batch length to a multiple of this (shard/tile friendly).
+    # Pad the triplet batch length to a multiple of this (and of the data
+    # axis size): equal-length shards, weight-0 padding rows.
     batch_pad_multiple: int = 512
-    # Pallas tile size along the triplet axis (upper bound; dispatch
-    # auto-shrinks it to fit VMEM at large K/G/ensemble widths).
-    tile_b: int = 512
-    # Row-chunk size for the jnp/XLA path and likelihood passes (0 = off).
-    # Bounds XLA fusion tiles at large K, where the per-rating gather over
-    # the whole [B, K, K] tensor exceeds the 16 MB scoped-VMEM limit.
+    # Row-chunk size for the EM statistics and likelihood passes (0 = off).
+    # Bounds the [rows, K, K, R] intermediates at large K (ops/em.py).
     jnp_row_chunk: int = 16384
-    # Kernel numerics mode.  'fast' (default): MXU matmuls run at DEFAULT
-    # precision (bf16 operand passes) — measured ~30% faster, but on-chip
-    # 60-sweep likelihood traces show occasional small decreases (~3e-4
-    # relative; BASELINE.md numerics note), so tol-based early stopping
-    # reads a slightly noisy trace.  'strict': every kernel matmul runs at
-    # HIGHEST precision — the monotone-likelihood EM invariant holds
-    # on-chip (tests/test_tpu_numerics.py) at a measured throughput cost.
-    # The jnp path always runs HIGHEST and is unaffected.
-    precision: str = "fast"
-    # Restart sub-group width for the bdr kernel's block-diagonal stages
-    # (0 = measured-best rule: largest divisor of S with group*K <= 128
-    # MXU lanes — ops/dispatch.py _pick_bdr_group).  Must divide the
-    # per-device restart count.  tools/bdr_group_sweep.py measures the
-    # frontier; the resolved choice is recorded in the fit report and
-    # checkpoint for reproducibility.
-    bdr_group: int = 0
 
 
 @dataclass(frozen=True)
@@ -218,7 +202,13 @@ class Config:
             train=TrainConfig(**d.get("train", {})),
             split=SplitConfig(**d.get("split", {})),
             mesh=MeshConfig(**d.get("mesh", {})),
-            engine=EngineConfig(**d.get("engine", {})),
+            engine=EngineConfig(
+                **{
+                    k: v
+                    for k, v in d.get("engine", {}).items()
+                    if k not in _REMOVED_ENGINE_KEYS
+                }
+            ),
             out_dir=d.get("out_dir", "runs/default"),
         )
 

@@ -1,7 +1,7 @@
 """Packed gene-tuple arrays — the device-resident dataset format (layer L1).
 
 The reference keeps the dataset as Python dicts and lists of triplets
-(SURVEY.md §2 L1).  The TPU-native format is three dense arrays, padded to a
+(SURVEY.md §2 L1).  The device format is three dense arrays, padded to a
 static shape so every jit compiles once:
 
 - ``triplets``: int32[N, arity] — dense gene ids per observation (arity 3

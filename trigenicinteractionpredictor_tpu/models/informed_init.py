@@ -2,7 +2,7 @@
 
 The reference initializes every restart from normalized uniforms and relies
 on many restarts to escape bad EM basins (SURVEY.md §2 "Random init"); the
-round-1 hardness study (BASELINE.md) showed that on peaky ground truth every
+EM hardness study (docs/DESIGN.md §5b) showed that on peaky ground truth every
 such chain lands in the same shallow basin (held-out AUC 0.55 vs Bayes
 0.81).  This module seeds theta from the data instead, using a
 method-of-moments observation: under the MMSBM, the expected *pairwise*
@@ -12,7 +12,7 @@ co-occurrence matrix of positive labels carries the group structure in its
 leading eigenspace.
 
 Recipe (all host-side NumPy; G is ~10^3, so the G x G eigendecomposition is
-microseconds — nothing here belongs on the TPU):
+microseconds — nothing here belongs on the accelerator):
 
 1. A[g, h]     = sum of weights of observations containing both g and h
    Apos[g, h]  = the same restricted to positive-label observations

@@ -2,7 +2,7 @@
 
 The reference holds ``theta`` as a dict gene -> list[K] and ``p`` as a
 nested K x K x K x R Python list, with shadow accumulators ``ntheta``/``npr``
-(SURVEY.md §2 L2).  The TPU-native state is two dense arrays in a registered
+(SURVEY.md §2 L2).  The device state is two dense arrays in a registered
 dataclass pytree — accumulators are not state, they are values flowing
 through the pure EM step.
 

@@ -9,7 +9,7 @@ Plain restarts resample the same shallow basins and Dirichlet perturbation
 merge-split changes which groups exist, the failure mode neither can fix
 (one starved component, another doing double duty).
 
-Measured (BASELINE.md "EM quality study", peaky config): the best train
+Measured (docs/DESIGN.md §5b "EM quality study", peaky config): the best train
 likelihood of any cold-start method tested (-9419 vs plain EM's -9579 at
 comparable compute), while held-out AUC stays at noise — on that config the
 EM objective itself is not aligned with generalization, so the knob ships

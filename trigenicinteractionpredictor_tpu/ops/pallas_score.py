@@ -1,200 +1,122 @@
-"""Fused ensemble scoring kernel — the serving hot path (SURVEY.md §4.4).
+"""Fused ensemble scoring kernel for the GPU — the ``predict`` hot path.
 
-The jnp ensemble scorer runs at ~5.3M rows/s at the production S=10
-(round-5 measurement: materialized [S, B, K^2] outer products + small
-per-restart matmuls + the anti-miscompile barriers keep it at ~1% MXU),
-while the EM kernel sustains 42.6M rows/s doing strictly MORE work per
-row.  Serving deserves the same treatment: this kernel computes the full
-rating distribution D_b(r, s) = sum_klm th1 th2 th3 p_s[k,l,m,r] for
-every row and every restart in one fused pass —
+The plain restart-batched scorer (ops/scoring.py
+``ensemble_predict_interaction_batched``) writes and re-reads the outer
+products W [S, B, K^2] and the contraction A [S, B, K, R] in device
+memory: about 5 KB per row at S=10, K=10, against 12 bytes of input.
+This kernel keeps both in registers.  For one tile of ``Bt`` rows it
 
-    th1..3_all = onehot([Bt, G]) @ theta_all          (shared gathers)
-    W          = (th1_all @ E1_bd) * (th2_all @ E2_bd)   [Bt, S*K^2]
-    A3_all     = W @ P_kk_bd                             [Bt, R*S*K]
-    D[:, r, :] = (A3_all[r-block] * th3_all) @ KS        [Bt, S]
+- loads the tile's three gene-id columns;
+- loops over the S restarts inside the block: gathers the three theta
+  rows of restart s by index from a [S*G, Kp] stack (no one-hot, so no
+  G limit; at G=1000 the stack is 640 KB and stays in L2), forms
+  W = th1 (x) th2 as [Bt, Kp^2], contracts it with p_s[:, :, :, r] as
+  one ``pl.dot`` of [Bt, Kp^2] x [Kp^2, Kp], then with th3;
+- writes the restart mean as [Bt] scores.
 
-— the bd kernel's algebra (ops/pallas_em_bd.py) truncated after A3: no
-M-step statistics, no scale chain.  Because theta rows are on the
-simplex, sum_r D_b(r) == 1 exactly, so D IS the predictive distribution
-(same semantics as ops/scoring.predict_proba, which also does not
-re-normalize).
+Only the interaction rating's slice of p enters, since the user-facing
+score is P(r = interact).  K is zero-padded to Kp, a power of two of at
+least 16 (Triton's block shapes are powers of two, and its ``dot`` needs
+16 along every side); the padded theta columns are zero, so they add
+nothing.  The ``pl.dot`` runs in TF32, like the plain fast path.
 
-Like the one-hot EM family the kernel holds [Bt, G] one-hots in VMEM, so
-it serves the reference-scale G; larger G falls back to the batched jnp
-scorer (ops/scoring.py picks automatically).
+Written for Pallas's Triton route (``backend="triton"``).  Tests run it
+with ``interpret=True`` on the CPU; nothing else does.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from trigenicinteractionpredictor_tpu.ops.pallas_em_bd import (
-    _bd_params,
-    _bd_selectors,
-)
-
-DEFAULT_TILE_B = 512
-# The scoring body is much simpler than the EM kernels (no accumulators,
-# no scale chain, 3 live slabs), so its envelope runs closer to Mosaic's
-# real ~16 MB scoped limit than the EM families' conservative 14.5 MB.
-# Measured-good anchor: t512 at G=1000/K=10/S=10 (the production serving
-# shape) compiles and runs 56.2M rows/s on-chip (2026-08-21).
-_VMEM_BUDGET = int(15.5 * 1024 * 1024)
+# Register budget: W is [Bt, Kp^2] f32 per block, kept at 16K elements
+# (64 KB across the block's 4 warps).
+_W_ELEMS = 16384
+# Past K=32 the [16, Kp^2] tile alone exceeds that budget.
+MAX_KERNEL_K = 32
 
 
-def score_kernel_fits(
-    n_genes: int, k: int, n_samples: int, tile_b: int = DEFAULT_TILE_B,
-    n_ratings: int = 2,
-) -> bool:
-    """Analytic VMEM envelope: the one-hot trio + ~3 live [Bt, S*K^2]
-    slabs + the block-diagonal operands."""
-    s = max(n_samples, 1)
-    sk, sk2 = s * k, s * k * k
-    r = max(n_ratings, 2)
-    onehot = 3 * tile_b * n_genes * 4
-    slabs = 3 * tile_b * sk2 * 4 + tile_b * r * sk * 4
-    operands = (2 * sk * sk2 + sk2 * r * sk + n_genes * sk) * 4
-    return onehot + slabs + operands < _VMEM_BUDGET
+def _padded_k(k: int) -> int:
+    return max(16, pl.next_power_of_2(k))
 
 
-def _fit_score_tile(
-    n_genes: int, k: int, n_samples: int, tile_b: int = DEFAULT_TILE_B
-) -> Optional[int]:
-    t = tile_b
-    while t >= 128:
-        if score_kernel_fits(n_genes, k, n_samples, t):
-            return t
-        t //= 2
-    return None
+def tile_rows(k: int) -> int:
+    """Rows per block at this K: 64 at K <= 16, 16 at K = 17..32."""
+    kp = _padded_k(k)
+    return max(16, min(64, _W_ELEMS // (kp * kp)))
 
 
-def _score_tile_kernel(
-    trip_ref,      # int32 [Bt, 3]
-    theta_ref,     # f32 [G, S*K]
-    pkk_ref,       # f32 [S*K2, R*S*K] block-diag
-    e1_ref,        # f32 [S*K, S*K2] block-diag
-    e2_ref,        # f32 [S*K, S*K2]
-    ks_ref,        # f32 [S*K, S]
-    out_ref,       # f32 [Bt, R*S]
-    *,
-    k: int,
-    n_ratings: int,
-    n_samples: int,
-):
-    prec = None  # DEFAULT: single-pass MXU; ~1e-3 score noise, fine for ranking
-    K, R, S = k, n_ratings, n_samples
-    Bt = trip_ref.shape[0]
-    G = theta_ref.shape[0]
-    SK = S * K
-
-    theta = theta_ref[:]
-    gene_iota = jax.lax.broadcasted_iota(jnp.int32, (Bt, G), 1)
-
-    def onehot(pos):
-        return (gene_iota == trip_ref[:, pos][:, None]).astype(jnp.float32)
-
-    th1_all = jnp.dot(onehot(0), theta, preferred_element_type=jnp.float32, precision=prec)
-    th2_all = jnp.dot(onehot(1), theta, preferred_element_type=jnp.float32, precision=prec)
-    th3_all = jnp.dot(onehot(2), theta, preferred_element_type=jnp.float32, precision=prec)
-
-    spread1 = jnp.dot(th1_all, e1_ref[:], preferred_element_type=jnp.float32, precision=prec)
-    spread2 = jnp.dot(th2_all, e2_ref[:], preferred_element_type=jnp.float32, precision=prec)
-    W = spread1 * spread2                                  # [Bt, S*K2]
-    A3_all = jnp.dot(W, pkk_ref[:], preferred_element_type=jnp.float32, precision=prec)
-
-    for rr in range(R):
-        Dr = jnp.dot(
-            A3_all[:, rr * SK : (rr + 1) * SK] * th3_all, ks_ref[:],
-            preferred_element_type=jnp.float32, precision=prec,
-        )                                                  # [Bt, S]
-        out_ref[:, rr * S : (rr + 1) * S] = Dr
+def score_kernel_applies(arity: int, n_samples: int, k: int) -> bool:
+    """Shapes the kernel serves: trigenic restart ensembles with K <= 32."""
+    return arity == 3 and n_samples >= 1 and k <= MAX_KERNEL_K
 
 
-@functools.partial(jax.jit, static_argnames=("tile_b", "interpret"))
-def _pallas_score(
-    thetas: jax.Array,    # [S, G, K]
-    ps: jax.Array,        # [S, K, K, K, R]
-    triplets: jax.Array,  # int32 [B, 3], B % tile_b == 0
-    tile_b: int,
-    interpret: bool = False,
-) -> jax.Array:
-    """D[b, r, s] for every padded row: f32 [B, R, S]."""
-    S, G, K = thetas.shape
-    R = ps.shape[-1]
-    B = triplets.shape[0]
-    assert B % tile_b == 0, (B, tile_b)
-    n_tiles = B // tile_b
-    SK = S * K
+def _score_kernel(i1_ref, i2_ref, i3_ref, theta_ref, p_ref, out_ref, *,
+                  n_samples: int, n_genes: int, kp: int):
+    i1, i2, i3 = i1_ref[...], i2_ref[...], i3_ref[...]
+    bt = i1.shape[0]
 
-    theta_all = jnp.transpose(thetas, (1, 0, 2)).reshape(G, SK)
-    _, P_kk_bd = _bd_params(ps.astype(jnp.float32))
-    E1, E2, KS, _ = _bd_selectors(K, S)
+    def restart(s, acc):
+        off = s * n_genes
+        th1 = theta_ref[i1 + off]                                # [Bt, Kp]
+        th2 = theta_ref[i2 + off]
+        th3 = theta_ref[i3 + off]
+        w = (th1[:, :, None] * th2[:, None, :]).reshape(bt, kp * kp)
+        p_s = p_ref[pl.ds(s * kp * kp, kp * kp), :]              # [Kp^2, Kp]
+        a = pl.dot(w, p_s, allow_tf32=True)                      # [Bt, Kp]
+        return acc + jnp.sum(a * th3, axis=1)
 
-    kernel = functools.partial(
-        _score_tile_kernel, k=K, n_ratings=R, n_samples=S
+    acc = jax.lax.fori_loop(
+        0, n_samples, restart, jnp.zeros((bt,), jnp.float32)
     )
-    tile_spec = lambda w_: pl.BlockSpec(  # noqa: E731
-        (tile_b, w_), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    full_spec = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            tile_spec(3),
-            full_spec((G, SK)),
-            full_spec((S * K * K, R * SK)),
-            full_spec((SK, S * K * K)),
-            full_spec((SK, S * K * K)),
-            full_spec((SK, S)),
-        ],
-        out_specs=tile_spec(R * S),
-        out_shape=jax.ShapeDtypeStruct((B, R * S), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * (3 * G * SK + 2 * SK * S * K * K
-                           + S * K * K * R * SK // max(S, 1)),
-            bytes_accessed=B * (3 * 4 + R * S * 4) + G * SK * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(
-        triplets,
-        theta_all.astype(jnp.float32),
-        P_kk_bd,
-        jnp.asarray(E1),
-        jnp.asarray(E2),
-        jnp.asarray(KS),
-    )
-    return out.reshape(B, R, S)
+    out_ref[...] = acc / n_samples
 
 
-def pallas_ensemble_predict_interaction(
+@functools.partial(jax.jit, static_argnames=("interact_rating", "interpret"))
+def triton_ensemble_predict_interaction(
     states,
     triplets: jax.Array,
     interact_rating: int = 1,
-    tile_b: int = 0,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ) -> jax.Array:
-    """Sample-averaged P(interact) through the fused scoring kernel.
+    """Sample-averaged P(interact) for [B, 3] triplets: f32 [B].
 
-    Pads rows to the tile internally (padding scores are dropped), so any
-    B works.  Caller is responsible for checking score_kernel_fits.
+    Same semantics as ``ops.scoring.ensemble_predict_interaction``.  Rows
+    are padded to the tile internally (gene 0, scores dropped), so any B
+    works.  ``interpret=True`` runs the kernel in the Pallas interpreter
+    (tests); otherwise it compiles for the GPU through Triton.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    thetas, ps = states.theta, states.p
-    S, G, K = thetas.shape
-    tile = tile_b or (_fit_score_tile(G, K, S) or DEFAULT_TILE_B)
+    theta, p = states.theta, states.p        # [S, G, K], [S, K, K, K, R]
+    S, G, K = theta.shape
+    kp = _padded_k(K)
+    bt = tile_rows(K)
+    theta_st = (
+        jnp.zeros((S, G, kp), jnp.float32)
+        .at[:, :, :K].set(theta.astype(jnp.float32))
+        .reshape(S * G, kp)
+    )
+    p_st = (
+        jnp.zeros((S, kp, kp, kp), jnp.float32)
+        .at[:, :K, :K, :K].set(p[..., interact_rating].astype(jnp.float32))
+        .reshape(S * kp * kp, kp)
+    )
     B = triplets.shape[0]
-    Bp = -(-B // tile) * tile
-    trips_p = jnp.zeros((Bp, 3), jnp.int32).at[:B].set(triplets)
-    d = _pallas_score(thetas, ps, trips_p, tile_b=tile, interpret=interpret)
-    return jnp.mean(d[:B, interact_rating, :], axis=-1)
+    Bp = -(-B // bt) * bt
+    trips = jnp.zeros((Bp, 3), jnp.int32).at[:B].set(triplets.astype(jnp.int32))
+    rows = pl.BlockSpec((bt,), lambda i: (i,))
+    out = pl.pallas_call(
+        functools.partial(_score_kernel, n_samples=S, n_genes=G, kp=kp),
+        grid=(Bp // bt,),
+        in_specs=[rows, rows, rows, pl.no_block_spec, pl.no_block_spec],
+        out_specs=rows,
+        out_shape=jax.ShapeDtypeStruct((Bp,), jnp.float32),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="triton_ensemble_score",
+    )(trips[:, 0], trips[:, 1], trips[:, 2], theta_st, p_st)
+    return out[:B]

@@ -3,10 +3,10 @@
 The reference is a single CPython process with no communication backend.
 Here multi-host runs use JAX's native distributed runtime: one process per
 host, ``jax.distributed.initialize()`` wiring the PJRT processes together,
-XLA collectives (the per-sweep stats psum) riding ICI within a slice and
-DCN across hosts.  The ensemble tier (folds x K x restarts) needs no
-communication at all until the final report merge — work units partition by
-``process_index`` (train/driver.py).
+XLA collectives (the per-sweep stats psum) riding NCCL over NVLink within
+a host and the network across hosts.  The ensemble tier (folds x K x
+restarts) needs no communication at all until the final report merge —
+work units partition by ``process_index`` (train/driver.py).
 
 On a single machine nothing needs initializing; every helper degrades to
 the 1-process case.  Tests exercise multi-process partitioning through the
@@ -42,9 +42,8 @@ def maybe_initialize(
     """Initialize jax.distributed when a multi-host launch is configured.
 
     Explicit arguments win; otherwise standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
-    TPU pod's own metadata) are honored by jax.distributed itself.  A
-    plain single-host run skips initialization entirely.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) are
+    honored here.  A plain single-host run skips initialization entirely.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"

@@ -1,4 +1,4 @@
-"""Parity-readiness gate against the upstream reference (VERDICT r1 item 2).
+"""Parity-readiness gate against the upstream reference.
 
 The reference mount ``/root/reference/`` has been empty in every session so
 far (SURVEY.md §0), so real-data parity — "match reference converged
@@ -154,7 +154,6 @@ def parity_artifact(
 
     from trigenicinteractionpredictor_tpu.data.splits import train_test_split
     from trigenicinteractionpredictor_tpu.eval import evaluate
-    from trigenicinteractionpredictor_tpu.models.mmsbm import ModelState
     from trigenicinteractionpredictor_tpu.ops.scoring import (
         ensemble_predict_interaction,
     )

@@ -87,7 +87,7 @@ def run_units(
     # unit spread across all hosts pass an explicit mesh instead.)  The
     # local mesh honors cfg.mesh's ensemble/model axes — a user's
     # --mesh-ensemble/--mesh-model must not be silently dropped in exactly
-    # the grid runs the flags were built for (VERDICT r2 item 6) — with
+    # the grid runs the flags were built for — with
     # the data axis absorbing whatever devices remain.
     if mesh is None and jax.process_count() > 1:
         from trigenicinteractionpredictor_tpu.parallel.mesh import make_mesh
@@ -162,7 +162,7 @@ def merge_report(out_dir: str) -> dict:
     in a multi-host launch).  Selects the best K per fold by HELD-OUT
     likelihood of the best sample (BASELINE config 4) — training likelihood
     grows nearly monotonically with K (measured: K=50 reaches train L -34k
-    vs K=25's -65k while its held-out L is far worse; BASELINE.md), so
+    vs K=25's -65k while its held-out L is far worse; docs/DESIGN.md §6), so
     selecting on it would always pick the largest, most overfit K."""
     recs = []
     for path in sorted(glob.glob(os.path.join(out_dir, "units", "*.json"))):
